@@ -1,7 +1,7 @@
 """Self-contained interactive HTML writers for the example scripts — the
 framework-native analogue of the reference's GLMakie apps
 (/root/reference/examples/rosenbrock.jl trajectory+slider viz,
-adaptivekernel.jl parameter slider): a headless TPU box has no GL display,
+adaptivekernel.jl parameter slider): a headless GPU machine has no GL display,
 so the examples emit a single HTML file (data embedded as JSON, vanilla JS,
 no network, no dependencies) that any browser opens."""
 

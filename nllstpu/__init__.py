@@ -1,11 +1,11 @@
-"""nllstpu — a TPU-native robustified non-linear least-squares framework.
+"""nllstpu — a robustified non-linear least-squares framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of NLLSsolver.jl
+A from-scratch JAX/XLA rebuild of the capabilities of NLLSsolver.jl
 (Ceres-style robustified NLLS): manifold-valued variable blocks, type-batched
 residual blocks with fixed or adaptive robust kernels, Jacobians by forward
 autodiff through the retraction, Newton / Levenberg-Marquardt / dogleg /
 gradient-descent iterations over dense or Schur-reduced normal equations, and
-mesh-sharded assembly for multi-chip TPU scaling.  See SURVEY.md for the
+mesh-sharded assembly for multi-device scaling.  See SURVEY.md for the
 structural map of the reference and the design translation.
 """
 

@@ -3,7 +3,7 @@
 The reference solver (NLLSsolver.jl) computes everything in Float64 and its
 test targets require final costs < 1e-15 (see /root/reference/test/optimizeba.jl:64-75),
 which is unreachable in f32.  We therefore enable JAX x64 globally at import
-time; individual problems may still opt into float32 for speed on TPU via the
+time; individual problems may still opt into float32 for speed on the GPU via the
 ``dtype`` argument of :class:`nllstpu.Problem`.
 """
 

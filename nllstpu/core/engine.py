@@ -7,7 +7,7 @@ reweighting by ρ′, second-order correction 2ρ″ggᵀ, adaptive-kernel cross
 blocks) and src/linearsystem.jl lines 132-175 (scatter-add of per-cost blocks
 into the symmetric system).
 
-TPU-native design (SURVEY.md §7):
+Design (SURVEY.md §7):
 
 * Jacobians come from ``jax.jacfwd`` of ``residual ∘ retract`` at the zero
   tangent — equivalent to the reference pushing ForwardDiff duals through the
@@ -299,8 +299,8 @@ def _gather_vals(batch: CostBatch, variables: dict):
 def _gather_vals_cm(batch: CostBatch, variables: dict, runs=None):
     """Components-major gathers: per slot ``[ambient, B]``.  Gathering from
     a transposed ``[ambient, n]`` family array puts the batch on the lane
-    dimension, so the whole residual computation runs on well-tiled [B]
-    vectors (the [B, *shape] layout pads tiny trailing dims ~50x on TPU).
+    dimension, so the whole residual computation runs on contiguous [B]
+    vectors instead of arrays with tiny trailing dims.
 
     ``runs = (slot, buckets)`` marks an obs-major batch (column
     ``col_base + (l − l_base)·k + j`` = the j-th cost of landmark ``l`` in
@@ -357,7 +357,7 @@ def batch_cost(batch: CostBatch, variables: dict, dtype, runs=None) -> jnp.ndarr
     vals = _gather_vals(batch, variables)
     if batch.batched:
         # Whole-batch residual function: [B]-major scalar-expanded math, no
-        # vmap (avoids tiny-trailing-dim tiling waste on TPU).
+        # vmap (no arrays with tiny trailing dims).
         r = batch.fn(batch.params, *vals)
         sq = jnp.sum(r * r, axis=-1)
         costs = 0.5 * batch.kernel.rho(sq)
@@ -450,12 +450,10 @@ def batch_grad_hess_cm(batch: CostBatch, variables: dict, layout: Layout, dtype)
     """Components-major variant of :func:`batch_grad_hess`:
     (masked cost sum, g [S, B], H [S, S, B], rows [B, S]).
 
-    The [B, S, S] block layout pads its tiny trailing (S, S) dims to
-    (8, 128) TPU tiles — ~860MB of HBM traffic per assemble at 105k
-    observations — while [S, S, B] keeps the batch axis minor (<2x pad).
-    Profiled: this was the single largest cost of a full LM iteration,
-    hidden because the earlier assemble-only measurements dead-code
-    eliminated the unused Hessian.  Only ``batched='cm'`` batches compute
+    [S, S, B] keeps the long batch axis minor, so every reduction over the
+    batch reads contiguous memory; the [B, S, S] layout puts the tiny
+    (S, S) dims last.  (Time an assemble with its outputs used: an unused
+    Hessian is dead-code eliminated.)  Only ``batched='cm'`` batches compute
     natively in this layout; others fall back to the batch-major math and
     transpose once at the boundary (small batches by construction)."""
     if batch.batched == "cm":

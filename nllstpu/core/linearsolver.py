@@ -2,9 +2,10 @@
 
 Reference parity: src/linearsolver.jl — dense/static systems use Cholesky
 with a fallback factorization when the matrix is not positive definite
-(``try_cholesky!``, lines 7-26); the sparse LDLᵀ path is replaced TPU-natively
-by the Schur-complement solver in :mod:`nllstpu.ops.schur` (sparse direct
-factorization does not map to the MXU; see SURVEY.md §2 "native" table).
+(``try_cholesky!``, lines 7-26); the sparse LDLᵀ path is replaced by the
+Schur-complement solver in :mod:`nllstpu.ops.schur` (batched small-block
+inverses and one large GEMM in place of a sparse direct factorization; see
+SURVEY.md §2 "native" table).
 
 All solvers are jit/vmap-compatible: the not-positive-definite check is a
 runtime ``lax.cond`` on NaNs in the Cholesky factor rather than an exception.
@@ -24,9 +25,8 @@ def cholesky_solve(a, b):
 
     chol = jnp.linalg.cholesky(a)
     # Run the triangular solves unconditionally and gate only the LU
-    # fallback behind the cond: on TPU wrapping the whole solve in a cond
-    # costs ~0.25ms extra per 768-dim solve (control-flow overhead), while
-    # the rare non-SPD case merely wastes the two (cheap) triangular solves.
+    # fallback behind the cond: a non-SPD matrix merely wastes the two
+    # triangular solves.
     y = jax.scipy.linalg.solve_triangular(chol, b, lower=True)
     x = jax.scipy.linalg.solve_triangular(chol, y, lower=True, trans=1)
     # A failed (or NaN-poisoned) factorization always surfaces NaN on the
@@ -63,10 +63,10 @@ def batched_inv_spd(h):
     """Batched inverse of small symmetric blocks ``[n, d, d]``.
 
     For d ≤ 3 uses the closed-form adjugate — one fused elementwise XLA
-    computation over the whole batch, which on TPU beats a vmapped Cholesky
-    whose runtime fallback ``lax.cond`` lowers to a select that executes BOTH
-    branches per block.  Larger blocks fall back to the vmapped
-    Cholesky-with-fallback path."""
+    computation over the whole batch, where a vmapped Cholesky's runtime
+    fallback ``lax.cond`` becomes a select that executes BOTH branches per
+    block.  Larger blocks fall back to the vmapped Cholesky-with-fallback
+    path."""
     d = h.shape[-1]
     if d == 1:
         return 1.0 / h
@@ -111,11 +111,8 @@ def batched_inv_spd_cm(h):
     """Components-major batched inverse of small symmetric blocks: ``h`` is
     ``[d, d, n]`` and so is the result.
 
-    On TPU this is the layout that matters: ``[n, d, d]`` tiles its trailing
-    ``(d, d)`` dims to (8, 128) — a ~390x memory inflation for d=3 that made
-    the one fused inverse kernel stream ~74MB per call at bench scale —
-    while ``[d, d, n]`` keeps the big axis minor (~2.7x padding only).  All
-    closed-form cofactor arithmetic is elementwise over ``[n]`` slices."""
+    ``[d, d, n]`` keeps the long axis minor, so the closed-form cofactor
+    arithmetic is elementwise over contiguous ``[n]`` slices."""
     d = h.shape[0]
     if d == 1:
         return 1.0 / h

@@ -11,7 +11,7 @@ equivalent of the reference pushing ForwardDiff duals through ``update``
 (src/autodiff.jl:57-61).
 
 All variables of one manifold family are stored stacked as an array of shape
-``[n, *manifold.shape]`` and retracted with a single ``vmap`` — the TPU-native
+``[n, *manifold.shape]`` and retracted with a single ``vmap`` — the batched
 replacement for the reference's per-instance dispatch.
 
 Invariant every manifold must satisfy: ``retract(x, 0) == x`` (bitwise where
@@ -190,8 +190,8 @@ def so3_log(r):
     θ comes from ``atan2(|vee|/2, (tr−1)/2)`` rather than ``arccos``:
     arccos has an infinite derivative at its clipped endpoint c = 1, so
     ``jacfwd`` of an arccos-based log NaNs for exact-identity rotations —
-    which TPU's default-bf16 matmuls in user residuals produce routinely
-    (trace rounds to exactly 3).  atan2 is smooth there, and the
+    which reduced-precision matmuls in user residuals (bf16, TF32) produce
+    routinely (trace rounds to exactly 3).  atan2 is smooth there, and the
     θ/(2 sin θ) factor is expressed via |vee| = 2 sin θ with a Taylor
     guard so the whole map differentiates cleanly at the identity."""
     trace = r[0, 0] + r[1, 1] + r[2, 2]

@@ -2,7 +2,7 @@
 
 Reference parity: src/problem.jl (``NLLSProblem``, ``addvariable!``,
 ``addcost!``, ``subproblem``) and src/VectorRepo.jl (the type-keyed cost
-store).  The TPU-native translation (SURVEY.md §7): variables of one manifold
+store).  The batched translation (SURVEY.md §7): variables of one manifold
 family are stacked into a single ``[n, *shape]`` array, and costs of one
 *type* — same residual function, same kernel, same dependent families, same
 parameter structure — form a padded struct-of-arrays batch evaluated by a
@@ -127,7 +127,7 @@ def _auto_cm_jacobian(fn, manifolds):
     every cost's column-j derivative rides the same broadcast basis
     tangent, so the whole batch stays components-major with no vmap.  This
     is the reference's duals-through-``update`` autodiff (src/autodiff.jl)
-    in the lane-optimal TPU layout; hand Jacobians remain cheaper (one
+    in the components-major layout; hand Jacobians remain cheaper (one
     pass instead of S) and take precedence."""
     import jax
 
@@ -369,14 +369,14 @@ class Problem:
         ``slots`` is a list of ``(manifold, index_array[k])`` pairs (one per
         dependency slot) and ``params`` a pytree whose leaves have leading
         dimension ``k``.  Semantically identical to ``k`` ``add_cost`` calls
-        but O(1) Python work — the TPU-native ingestion path for BAL-scale
+        but O(1) Python work — the bulk ingestion path for BAL-scale
         problems (SURVEY.md §7 step 8).
 
         ``batched=True`` declares that ``fn`` (and ``jacobian``) take whole
         ``[k, ...]`` stacked arguments instead of being vmapped per cost —
         the performance escape hatch for hot residuals: scalar-expanded
-        batch code avoids the tiny-trailing-dimension tiling waste of
-        vmapped per-cost math on TPU."""
+        batch code avoids the tiny trailing dimensions of vmapped per-cost
+        math."""
         from .. import config
 
         if not slots:
@@ -455,9 +455,11 @@ class Problem:
         return list(self._families.keys())
 
     def stacked_variables(self) -> dict:
-        """Variables as a dict of stacked jnp arrays (the solver state)."""
+        """Variables as a dict of stacked jnp arrays (the solver state).
+        Copies: on the CPU ``jnp.asarray`` may share the host store's
+        memory, which :meth:`set_values` overwrites in place."""
         return {
-            name: jnp.asarray(fam.values, dtype=self.dtype)
+            name: jnp.array(fam.values, dtype=self.dtype, copy=True)
             for name, fam in self._families.items()
         }
 

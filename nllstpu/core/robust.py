@@ -340,7 +340,7 @@ def _barron_core(x2, alpha, eps=1e-5):
     ρ(x, α) with x² given (scale already applied); continuous in α with
     epsilon-guarded limits at α → 0 and α → 2 (Barron, "A General and
     Adaptive Robust Loss Function", CVPR 2019 — public method, reimplemented
-    here for TPU)."""
+    here in JAX)."""
     b = jnp.abs(2.0 - alpha) + eps
     d = jnp.where(alpha >= 0, alpha + eps, alpha - eps)
     return (b / d) * (jnp.power(x2 / b + 1.0, 0.5 * d) - 1.0)

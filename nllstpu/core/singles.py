@@ -2,7 +2,7 @@
 
 Reference parity: ``optimizesingles!`` (src/optimize.jl:59-76, 183-205) loops
 over the variables of one type serially, building a per-variable cost subset
-from the transposed variable-cost incidence map.  The TPU-native design
+from the transposed variable-cost incidence map.  The batched design
 (SURVEY.md §7) instead runs **all** per-variable solves simultaneously: the
 per-variable cost subsets become padded index lists, the tiny univariate
 solver loop is the same generic ``run_loop``, and ``jax.vmap`` lifts it over

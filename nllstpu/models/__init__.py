@@ -1,5 +1,5 @@
 """Built-in problem families (the reference's examples/tests as library
-models, plus TPU-scale families)."""
+models, plus BAL-scale families)."""
 
 from .rosenbrock import make_rosenbrock
 from .ba import make_affine_ba, make_pinhole_ba, perturb_ba, affine_project, pinhole_project

@@ -130,7 +130,7 @@ def pinhole_project_jacobian(measurement, pose, point):
 
 def pinhole_project_batched(measurement, pose, point):
     """Whole-batch pinhole residual: scalar-expanded [B]-major math (no
-    per-cost vmap) — the TPU-efficient form for the hot path."""
+    per-cost vmap) — the batched form for the hot path."""
     r = pose[:, :, :3]  # [B, 3, 3]
     t = pose[:, :, 3]
     d = point - t  # [B, 3]
@@ -186,7 +186,7 @@ def pinhole_project_jacobian_batched(measurement, pose, point):
 def pinhole_project_cm(measurement, pose_cm, point_cm):
     """Components-major pinhole residual: ``pose_cm [12, B]`` (row-major
     [3,4] flattened), ``point_cm [3, B]``; returns ``[2, B]``.  Every
-    intermediate is a [B] vector — the lane-optimal TPU form."""
+    intermediate is a contiguous [B] vector."""
     r00, r01, r02, t0 = pose_cm[0], pose_cm[1], pose_cm[2], pose_cm[3]
     r10, r11, r12, t1 = pose_cm[4], pose_cm[5], pose_cm[6], pose_cm[7]
     r20, r21, r22, t2 = pose_cm[8], pose_cm[9], pose_cm[10], pose_cm[11]

@@ -55,10 +55,10 @@ def snavely_residual(measurement, camera, point):
 def snavely_residual_cm(measurement, camera_cm, point_cm):
     """Components-major Snavely residual: ``camera_cm [9, B]``,
     ``point_cm [3, B]``, ``measurement [B, 2]`` → ``[2, B]``.  Every
-    intermediate is a [B] vector (the lane-optimal TPU layout); the
+    intermediate is a contiguous [B] vector; the
     Jacobian is synthesized by ``_auto_cm_jacobian`` (linearize + 12
     basis-tangent passes), so this single function gives real BAL
-    problems the full dual-sorted / fused-kernel assembly path."""
+    problems the full dual-sorted assembly path."""
     w0, w1, w2 = camera_cm[0], camera_cm[1], camera_cm[2]
     t0, t1, t2 = camera_cm[3], camera_cm[4], camera_cm[5]
     f, k1, k2 = camera_cm[6], camera_cm[7], camera_cm[8]
@@ -221,7 +221,7 @@ def make_bal_problem(data: dict, dtype=None, robust_width=None,
     ``batched="cm"`` (default) uses the components-major residual with the
     hand analytic Jacobian (``hand_jacobian=False`` falls back to the
     synthesized 12-pass cm Jacobian) — real BAL data then takes the
-    dual-sorted / fused-kernel assembly path on TPU; ``batched=False``
+    dual-sorted assembly path; ``batched=False``
     keeps the per-cost vmapped formulation (the reference-shaped
     baseline).
 

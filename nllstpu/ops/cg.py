@@ -5,11 +5,11 @@ variable-cost graph is sparse but not bipartite — pose graphs, deformable
 meshes — a materialized Hessian wastes memory and a landmark elimination does
 not apply.  Here H is never formed: ``H @ x`` is computed batch-wise
 (gather rows of x per cost → per-cost block multiply → per-variable
-reduction), which on TPU is a stream of small batched matmuls.  The
+reduction), a stream of small batched matmuls.  The
 per-variable reduction inside the CG loop uses host-precomputed key tables
 (gather + dense sum + unique-row scatter) because XLA scatter-adds with
-duplicate indices SERIALIZE on TPU — the same finding that shaped the Schur
-assembly.  The preconditioner is block-Jacobi over variable blocks (batched
+duplicate indices serialize on some backends — the same concern that shaped
+the Schur assembly.  The preconditioner is block-Jacobi over variable blocks (batched
 small-block inverses) with a contiguous fast path when a family's tangent
 rows are a dense range, and the CG iteration is a ``lax.while_loop`` so the
 whole damped solve stays inside jit.
@@ -54,7 +54,7 @@ class CGOps:
     # Per-batch tuple of per-slot (table [n,K], row_base [n], dof, sel)
     # key tables turning the matvec's per-variable reduction into
     # gather + sum + unique-row scatter; None entries fall back to a
-    # duplicate-index scatter-add (serializes on TPU).
+    # duplicate-index scatter-add.
     slot_tables: tuple = ()
     # None = dtype default: 1e-14 for f64, 1e-5 for f32 (an f64 tolerance is
     # unreachable in f32 and forces every solve to burn max_iters).
@@ -78,8 +78,8 @@ class CGOps:
         y = jnp.zeros(self.dim + self.pad, dtype=x.dtype)
         for bi, (h, r) in enumerate(zip(hs, rows)):
             xg = xp[r]  # [B, S]
-            # full f32/f64 precision: TPU's default bf16 matmul makes the
-            # matvec effectively nonsymmetric and CG diverges to NaN.
+            # full f32/f64 precision: a reduced-precision matmul (bf16,
+            # TF32) makes the matvec effectively nonsymmetric and CG diverges to NaN.
             t = jnp.einsum("bst,bt->bs", h, xg, precision="highest")
             st = (
                 self.slot_tables[bi]

@@ -1,15 +1,16 @@
 """Multi-host execution helpers.
 
-The reference is single-process (SURVEY.md §5: no MPI/NCCL/Gloo).  The
-TPU-native story: ``jax.distributed.initialize`` joins the hosts, the data
-mesh spans every chip of every host, cost batches shard over it, and the
-``psum`` reductions in :mod:`nllstpu.parallel.mesh` automatically ride ICI
-within a slice and DCN across slices — no explicit communication code.
+The reference is single-process (SURVEY.md §5: no MPI/NCCL/Gloo).  Here
+``jax.distributed.initialize`` joins the hosts, the data mesh spans every
+device of every host, cost batches shard over it, and the ``psum``
+reductions in :mod:`nllstpu.parallel.mesh` become collectives (NCCL on
+GPUs) — no explicit communication code.
 
 On a single host (or in tests with ``--xla_force_host_platform_device_count``)
-everything works unchanged; ``initialize`` is only needed under multi-host
-launchers (GKE/TPU-VM pods), where each host calls it with its coordinator
-address before any jax computation.
+everything works unchanged; ``initialize`` is only needed when several
+processes share one mesh, where each process calls it with the
+coordinator's address, the process count and its own id before any jax
+computation.
 
 Tested by a REAL 2-process job (tests/test_distributed.py): two CPU
 processes with gloo TCP collectives
@@ -30,9 +31,11 @@ from .mesh import DATA_AXIS, make_mesh, parallelize  # noqa: F401
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
-    """Join a multi-host TPU job (thin wrapper over
-    ``jax.distributed.initialize`` — arguments are auto-detected on TPU pods
-    when omitted).  Call once per host before building meshes."""
+    """Join a multi-process job (thin wrapper over
+    ``jax.distributed.initialize``).  Pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id`` unless the
+    launcher's environment provides them.  Call once per process before
+    building meshes."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

@@ -1,17 +1,17 @@
 """Multi-device execution: residual batches sharded over a device mesh.
 
 The reference is single-threaded/single-process (SURVEY.md §5: no MPI/NCCL).
-The TPU-native scaling strategy (SURVEY.md §2 parallelism table, §7 step 8)
-is **data parallelism over residual blocks**: each cost-type batch is sharded
-on its batch dimension across the mesh's ``data`` axis, every device computes
-the cost/gradient/Hessian contributions of its shard, and the (small) normal
-equations are ``psum``-reduced over ICI so the reduced solve runs replicated.
-Works for both the dense and the Schur-reduced backends because the system
-pytree is just summed blockwise.
+The scaling strategy (SURVEY.md §2 parallelism table, §7 step 8) is **data
+parallelism over residual blocks**: each cost-type batch is sharded on its
+batch dimension across the mesh's ``data`` axis, every device computes the
+cost/gradient/Hessian contributions of its shard, and the (small) normal
+equations are ``psum``-reduced over the interconnect so the reduced solve
+runs replicated.  Works for both the dense and the Schur-reduced backends
+because the system pytree is just summed blockwise.
 
-Used with real TPU meshes in production and with
-``--xla_force_host_platform_device_count=N`` CPU meshes in tests and the
-driver's multi-chip dry run.
+The mesh is 1-D: the cards of one host are joined all to all, so the mesh
+follows the algorithm alone.  Tests use
+``--xla_force_host_platform_device_count=N`` CPU meshes.
 """
 
 from __future__ import annotations
@@ -127,10 +127,8 @@ class ParallelCompiled:
                             cam_k=None,
                         )
                     )
-            # w_pm=None: the psum-everything path sums per-device W in the
-            # standard layout and its ops don't speak p-major.
             local_info = dataclasses.replace(
-                self.schur_info, fast=tuple(fast), w_pm=None
+                self.schur_info, fast=tuple(fast)
             )
             # Pin w_dtype: the per-device W contributions are psum-summed
             # below and a pre-reduction bf16 downcast would stack error.
@@ -165,13 +163,7 @@ class ParallelCompiled:
         return self.base.apply(variables, x)
 
     def ctx(self, options=None) -> iterators.IterCtx:
-        base_ctx = self.base.ctx(options)
-        linops = base_ctx.linops
-        if getattr(linops, "pm", None) is not None:
-            # The sharded assemble pins the standard W layout (w_pm=None in
-            # _local_assemble); strip the p-major map from the ops too.
-            linops = dataclasses.replace(linops, pm=None)
-        return dataclasses.replace(base_ctx, cost=self.cost, linops=linops)
+        return dataclasses.replace(self.base.ctx(options), cost=self.cost)
 
     def run_loop_jit(self, opts, vars0):
         """Fully-jitted sharded optimization, safe under MULTI-PROCESS
@@ -200,9 +192,7 @@ class ParallelCompiled:
                     out_specs=P(),
                 )(vv, batch_args, fast_args)
 
-            # self.ctx (not base.ctx): it strips the p-major W map, which
-            # does not apply to the sharded assemble's standard-layout W.
-            ctx = dataclasses.replace(self.ctx(opts), cost=cost)
+            ctx = dataclasses.replace(self.base.ctx(opts), cost=cost)
             return run_loop(assemble, cost, ctx, opts, v)
 
         return jax.jit(fn)(vars0, self.batch_args, self.fast_args)

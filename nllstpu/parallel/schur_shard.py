@@ -14,7 +14,7 @@ SURVEY.md §5; no distributed machinery anywhere):
   never communicated.
 * The reduced (camera) system is formed by a ``psum`` of the per-device
   partial Schur corrections ``Σ_l W_l H_ll⁻¹ W_lᵀ`` — only the small
-  [Dr, Dr] S and [Dr] rhs ride the ICI, not W.
+  [Dr, Dr] S and [Dr] rhs ride the interconnect, not W.
 * The reduced Cholesky runs replicated (Dr is small by construction — that
   is the point of the Schur trick); back-substitution for the landmark
   steps is local, and only the [L·dl] step vector is all-gathered.
@@ -82,11 +82,30 @@ def _gather_elim_chunks(axis, lc, n_devices, dl, v_local):
     into the replicated global [Lp, dl] (landmark-major) array.  Written as
     place-into-zeros + psum rather than ``all_gather`` because the latter
     has no replication rule in shard_map's output checker (same bytes over
-    the ICI)."""
+    the interconnect)."""
     full = jnp.zeros((dl, n_devices * lc), dtype=v_local.dtype)
     s = jax.lax.axis_index(axis)
     full = jax.lax.dynamic_update_slice_in_dim(full, v_local, s * lc, 1)
     return jax.lax.psum(full, axis).T
+
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _quad_r(a, x):
+    """xᵀ A x at full precision."""
+    return jnp.dot(x, jnp.dot(a, x, precision=_HIGHEST), precision=_HIGHEST)
+
+
+def _local_schur(w, h_inv, g_l):
+    """This device's partial Schur correction W·H⁻¹·Wᵀ [Dr, Dr] and rhs
+    term W·H⁻¹·g [Dr] over its landmark chunk (components-major local W
+    [dl, Lc, Dr]); the S GEMM runs at :func:`schur.s_precision`."""
+    y = jnp.einsum("dlr,del->elr", w, h_inv, precision=_HIGHEST)
+    corr = jnp.einsum(
+        "elr,els->rs", y, w, precision=schur.s_precision(g_l.dtype)
+    )
+    return corr, jnp.einsum("elr,el->r", y, g_l, precision=_HIGHEST)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,14 +128,6 @@ class ShardedSchurOps:
     dof_elim: int
     n_devices: int = 1
     axis: str = DATA_AXIS
-    #: None, or the static pm_of_std index map [Dr] when the per-device W
-    #: chunk is stored in the p-major landmark-minor kernel layout
-    #: ([dl, dr_s*NRp, Lc] — see ops/pallas/w_place.py).  The map is built
-    #: from global reduced offsets, so it is identical on every device;
-    #: reduced-space vectors scatter through it before touching W and the
-    #: psum-reduced [Dr, Dr]/[Dr] results gather back — exactly the
-    #: single-device SchurOps.pm contract, localized.
-    pm: Any = None
     #: None (contiguous landmark ownership — device s owns global lids
     #: [s·Lc, (s+1)·Lc), the uniform-layout fast path), or the strided-
     #: ownership maps of the bucketed layout (_bucket_shard_plan):
@@ -135,19 +146,6 @@ class ShardedSchurOps:
             self.dim_reduced
             + self.n_devices * self.num_elim_local * self.dof_elim
         )
-
-    def _to_w_basis(self, vec, w_cols):
-        if self.pm is None:
-            return vec
-        return (
-            jnp.zeros(w_cols, dtype=vec.dtype).at[jnp.asarray(self.pm)].set(vec)
-        )
-
-    def _from_w_basis(self, s_w, rhs_w):
-        if self.pm is None:
-            return s_w, rhs_w
-        idx = jnp.asarray(self.pm)
-        return s_w[idx][:, idx], rhs_w[idx]
 
     def _pad_eye(self, dtype):
         if self.gid_table is None:
@@ -201,84 +199,51 @@ class ShardedSchurOps:
         a_rr, _, h_ll, _, w = sys
         xr = x[: self.dim_reduced]
         xl = self._local_xl(x)
-        if self.pm is not None:  # p-major local W [dl, wc, Lc]
-            cross = jnp.einsum(
-                "drl,r,ld->", w, self._to_w_basis(xr, w.shape[1]), xl
-            )
-        else:
-            cross = jnp.einsum("dlr,r,ld->", w, xr, xl)
-        local = 2.0 * cross + jnp.einsum("ld,del,le->", xl, h_ll, xl)
-        return xr @ (a_rr @ xr) + jax.lax.psum(local, self.axis)
+        cross = jnp.einsum("dlr,r,ld->", w, xr, xl, precision=_HIGHEST)
+        local = 2.0 * cross + jnp.einsum(
+            "ld,del,le->", xl, h_ll, xl, precision=_HIGHEST
+        )
+        return _quad_r(a_rr, xr) + jax.lax.psum(local, self.axis)
 
     def solve(self, sys, lam):
         a_rr, b_r, h_ll, g_l, w = sys
         dl = self.dof_elim
         dtype = b_r.dtype
-        pm = self.pm is not None
         eye_l = jnp.eye(dl, dtype=dtype)
         eye_r = jnp.eye(self.dim_reduced, dtype=dtype)
         h_damped = h_ll + lam * eye_l[:, :, None] + self._pad_eye(dtype)
         h_inv = batched_inv_spd_cm(h_damped)
-        prec = "highest" if dtype == jnp.float64 else "high"
-        if pm:  # landmark-minor local W [dl, wc, Lc]
-            y = jnp.einsum("drl,del->erl", w, h_inv)
-            corr_l = jnp.einsum("erl,esl->rs", y, w, precision=prec)
-            wy_l = jnp.einsum("erl,el->r", y, g_l)
-        else:  # components-major local W [dl, Lc, Dr]
-            y = jnp.einsum("dlr,del->elr", w, h_inv)  # local W·H⁻¹
-            corr_l = jnp.einsum("elr,els->rs", y, w, precision=prec)
-            wy_l = jnp.einsum("elr,el->r", y, g_l)
         # Only the [Dr, Dr] partial correction and [Dr] partial rhs cross
-        # the ICI — W itself never moves.
-        corr, wy = jax.lax.psum((corr_l, wy_l), self.axis)
-        corr, wy = self._from_w_basis(corr, wy)
+        # the interconnect — W itself never moves.
+        corr, wy = jax.lax.psum(_local_schur(w, h_inv, g_l), self.axis)
         s_mat = a_rr + lam * eye_r - corr
         rhs = b_r - wy
         xr = cholesky_solve(s_mat, rhs)  # replicated reduced solve
-        if pm:
-            wx = jnp.einsum("drl,r->dl", w, self._to_w_basis(xr, w.shape[1]))
-        else:
-            wx = jnp.einsum("dlr,r->dl", w, xr)
-        xl = jnp.einsum("del,el->dl", h_inv, g_l - wx)
+        wx = jnp.einsum("dlr,r->dl", w, xr, precision=_HIGHEST)
+        xl = jnp.einsum("del,el->dl", h_inv, g_l - wx, precision=_HIGHEST)
         return jnp.concatenate([xr, self._gather_elim(xl).reshape(-1)])
 
     def solve0_quad_grad(self, sys):
         """Fused undamped solve + gᵀHg for dogleg (see SchurOps): the quad
         cross term rides the back-substitution's local W pass as a stacked
-        column; only one extra scalar psum crosses the ICI."""
+        column; only one extra scalar psum crosses the interconnect."""
         a_rr, b_r, h_ll, g_l, w = sys
         dtype = b_r.dtype
-        pm = self.pm is not None
         h_damped = h_ll + self._pad_eye(dtype)
         h_inv = batched_inv_spd_cm(h_damped)
-        prec = "highest" if dtype == jnp.float64 else "high"
-        if pm:
-            y = jnp.einsum("drl,del->erl", w, h_inv)
-            corr_l = jnp.einsum("erl,esl->rs", y, w, precision=prec)
-            wy_l = jnp.einsum("erl,el->r", y, g_l)
-        else:
-            y = jnp.einsum("dlr,del->elr", w, h_inv)
-            corr_l = jnp.einsum("elr,els->rs", y, w, precision=prec)
-            wy_l = jnp.einsum("elr,el->r", y, g_l)
-        corr, wy = jax.lax.psum((corr_l, wy_l), self.axis)
-        corr, wy = self._from_w_basis(corr, wy)
+        corr, wy = jax.lax.psum(_local_schur(w, h_inv, g_l), self.axis)
         xr = cholesky_solve(a_rr - corr, b_r - wy)
-        if pm:
-            stacked = jnp.stack(
-                [
-                    self._to_w_basis(xr, w.shape[1]),
-                    self._to_w_basis(b_r, w.shape[1]),
-                ],
-                axis=1,
-            )
-            wt = jnp.einsum("drl,rk->kdl", w, stacked)
-        else:
-            wt = jnp.einsum("dlr,rk->kdl", w, jnp.stack([xr, b_r], axis=1))
-        xl = jnp.einsum("del,el->dl", h_inv, g_l - wt[0])
-        local = 2.0 * jnp.sum(wt[1] * g_l) + jnp.einsum(
-            "dl,del,el->", g_l, h_ll, g_l
+        wt = jnp.einsum(
+            "dlr,rk->kdl", w, jnp.stack([xr, b_r], axis=1),
+            precision=_HIGHEST,
         )
-        ghg = b_r @ (a_rr @ b_r) + jax.lax.psum(local, self.axis)
+        xl = jnp.einsum(
+            "del,el->dl", h_inv, g_l - wt[0], precision=_HIGHEST
+        )
+        local = 2.0 * jnp.sum(wt[1] * g_l) + jnp.einsum(
+            "dl,del,el->", g_l, h_ll, g_l, precision=_HIGHEST
+        )
+        ghg = _quad_r(a_rr, b_r) + jax.lax.psum(local, self.axis)
         return (
             jnp.concatenate([xr, self._gather_elim(xl).reshape(-1)]),
             ghg,
@@ -356,7 +321,7 @@ class ShardedSchurCGOps(schur.SchurCGOps):
 def _bucket_shard_plan(buckets, L, n):
     """Per-shard STRIDED decomposition of a bucketed obs-major layout
     (ops/schur.ObsBuckets) so the round-4 skewed-degree fast paths survive
-    landmark sharding (VERDICT r5 item 3).
+    landmark sharding.
 
     Landmark ids are degree-DESCENDING and each degree-class bucket is a
     contiguous id range, so CONTIGUOUS ownership would concentrate every
@@ -493,13 +458,6 @@ class ShardedSchurCompiled:
     num_elim: int  # real L
     num_elim_local: int  # Lc
     n_devices: int
-    #: None, or the (n_r, nrp, dr_s, pm_of_std) tuple when each device's
-    #: local W chunk is kernel-placed in the p-major landmark-minor layout
-    #: ([dl, dr_s*NRp, Lc]): requires the run-preserving obs-major routing
-    #: (every shard is itself obs-major) and a global compile that
-    #: qualified for SchurInfo.w_pm.  The pm map is built from global
-    #: reduced offsets — identical on every device.
-    w_pm: Any = None
     #: Strided-ownership maps when the global layout is BUCKETED
     #: (_bucket_shard_plan; None for uniform layouts, which keep the
     #: contiguous ownership bit-identically).  Replicated host constants.
@@ -551,7 +509,6 @@ class ShardedSchurCompiled:
             num_elim_local=self.num_elim_local,
             dof_elim=i.dof_elim,
             n_devices=self.n_devices,
-            pm=None if self.w_pm is None else self.w_pm[3],
             gid_table=self.gid_table,
             gid_pos=self.gid_pos,
         )
@@ -606,15 +563,11 @@ class ShardedSchurCompiled:
             num_elim=self.num_elim_local,
             elim_ids={i.elim_family: elim_ids[0]},
             fast=tuple(fast),
-            elim_sort=(),  # pallas sorted runs don't apply to shard repads
             wpart_fam=i.wpart_fam,  # static per-batch structure is unchanged
             # The sharded CG ops consume batch-major wparts; keep the local
             # assemble off the cm dual-wpart path (global bucket ranges are
             # meaningless per shard anyway).
             wpart_buckets=(),
-            # Kernel-placed p-major local W when the run-preserving routing
-            # qualified (parallelize_schur); standard layout otherwise.
-            w_pm=self.w_pm,
         )
 
     def _local_assemble(self, variables, batch_args, elim_ids, fast_args):
@@ -623,7 +576,7 @@ class ShardedSchurCompiled:
         # w_dtype=None → the NLLSTPU_W_DTYPE knob applies, exactly like the
         # single-device direct Schur: each device owns its landmarks' W rows
         # outright (W is sharded on the landmark axis, never psum-reduced —
-        # only c/a_rr/b_r cross the ICI below), so per-device bf16 storage
+        # only c/a_rr/b_r cross the interconnect below), so per-device bf16 storage
         # introduces the same single downcast after f32 assembly as the
         # single-chip path, with f32 accumulation in every consumer.
         c, sys = schur.assemble_schur(
@@ -689,13 +642,6 @@ class ShardedSchurCompiled:
                 "assemble() is not exposed for the implicit sharded system; "
                 "use solve_once()/run()"
             )
-        # Standard layout: w [dl, Lp, Dr] sharded on axis 1; kernel-placed
-        # p-major layout: w [dl, dr_s*NRp, Lp] sharded on axis 2.
-        w_spec = (
-            P(None, DATA_AXIS)
-            if self.w_pm is None
-            else P(None, None, DATA_AXIS)
-        )
         f = jax.shard_map(
             self._local_assemble,
             mesh=self.mesh,
@@ -707,10 +653,9 @@ class ShardedSchurCompiled:
                     P(),
                     P(None, None, DATA_AXIS),
                     P(None, DATA_AXIS),
-                    w_spec,
+                    P(None, DATA_AXIS),
                 ),
             ),
-            check_vma=False,
         )
         return f(variables, self.batch_args, self.elim_ids, self.fast_args)
 
@@ -740,10 +685,6 @@ class ShardedSchurCompiled:
                     P(), P(), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)
                 ),
                 out_specs=(P(), P()),
-                # pallas_call inside shard_map requires vma annotations
-                # under the new varying-mesh-axes checker; disable it
-                # (the psum placement is explicit in the local functions).
-                check_vma=False,
             ))
             self.__dict__["_solve_once_fn"] = f
         return f(
@@ -800,7 +741,6 @@ class ShardedSchurCompiled:
             mesh=self.mesh,
             in_specs=(P(), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
             out_specs=(P(), P(), P()),
-            check_vma=False,
         )
         # Globally-sharded arrays must enter as jit ARGUMENTS: a closed-over
         # array spanning non-addressable devices is an unmaterializable
@@ -863,15 +803,6 @@ def parallelize_schur(compiled: CompiledProblem, mesh: Mesh) -> ShardedSchurComp
             owned = (gids >= s * lc) & (gids < min((s + 1) * lc, L))
             elim_ids[s, owned] = gids[owned] - s * lc
 
-    # Per-device kernel-placed W (p-major layout): requires the global
-    # compile to have qualified for SchurInfo.w_pm, the whole-system fused
-    # impl (the only kernel that works without a camera-major repack), and
-    # — checked per batch below — the run-preserving obs-major routing.
-    pm_ok = (
-        info.w_pm is not None
-        and not info.implicit
-        and schur._w_impl() in ("fused_all", "fused_all_interpret")
-    )
     batch_tpl, batch_args_host, fast_meta, fast_args_host = [], [], [], []
     for bi, b in enumerate(compiled.batches):
         mask_np = np.asarray(b.mask)
@@ -945,12 +876,6 @@ def parallelize_schur(compiled: CompiledProblem, mesh: Mesh) -> ShardedSchurComp
                 sh = np.full(b_rows, -1, dtype=np.int64)
             sels = [np.nonzero(sh == s)[0] for s in range(n)]
             extra_rows = np.nonzero(sh < 0)[0]
-        if (
-            elim_slots
-            and obs_k_shared is None
-            and batch_local_buckets is None
-        ):
-            pm_ok = False  # coupling batch lost its run structure
         fill = _balanced_fill([len(s) for s in sels], n, len(extra_rows))
         for s in range(n):
             sels[s] = np.concatenate(
@@ -989,7 +914,6 @@ def parallelize_schur(compiled: CompiledProblem, mesh: Mesh) -> ShardedSchurComp
                     num_elim=lc,
                     elim_ids={elim_fam: elim_ids[s]},
                     fast=(),
-                    elim_sort=(),
                 )
                 for s in range(n)
             ]
@@ -1080,7 +1004,6 @@ def parallelize_schur(compiled: CompiledProblem, mesh: Mesh) -> ShardedSchurComp
         num_elim=L,
         num_elim_local=lc,
         n_devices=n,
-        w_pm=info.w_pm if pm_ok else None,
         gid_table=gid_table,
         gid_pos=gid_pos,
     )

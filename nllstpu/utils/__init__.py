@@ -1,3 +1,4 @@
-"""Utility subpackage: native bindings, checkpointing, profiling."""
+"""Utility subpackage: native bindings, checkpointing, profiling, the
+compilation-cache placement."""
 
-from . import checkpoint, native, profiling  # noqa: F401
+from . import checkpoint, compile_cache, native, profiling  # noqa: F401

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing (SURVEY.md §5); its nearest analogs are
 the ``varbest`` snapshot and callback-driven problem mutation.  For
-long-running TPU solves this module saves/restores the variable state (and
+long-running solves this module saves/restores the variable state (and
 optionally iterator scalars) as a plain ``.npz``, so a run can resume from
 the best-known variables after preemption.
 """

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Re-measure and WRITE the committed CPU baseline used by bench.py
 (scripts/cpu_ref.json): the vs_baseline rate at the SAME iteration budget
-as the TPU leg (mixed amortization was a round-2 weak item), the f32
+as the GPU run (a mixed budget would mix fixed-cost amortization), the f32
 best_cost at that budget (the bf16 accuracy gate reference), and the
-converged target_cost driving time-to-target.  Run from anywhere; respects
-BENCH_NCAM/BENCH_NLMK/BENCH_VIS/BENCH_ITERS."""
+converged target_cost driving time-to-target.  Runs on the CPU; run from
+anywhere; respects BENCH_NCAM/BENCH_NLMK/BENCH_VIS/BENCH_ITERS."""
 
 import json
 import os
@@ -22,7 +22,7 @@ TARGET_ITERS = int(os.environ.get("BENCH_TARGET_ITERS", 150))
 
 def leg(iters):
     proc = subprocess.run(
-        [sys.executable, BENCH, "--worker", "cpu", str(iters)],
+        [sys.executable, BENCH, "--cpu-baseline", str(iters)],
         capture_output=True, text=True, timeout=3600, cwd=REPO,
     )
     for line in proc.stdout.splitlines():
@@ -42,7 +42,7 @@ def main():
     target_stats = leg(TARGET_ITERS)
     ref = {
         "comment": (
-            "CPU baseline for bench.py: vs_baseline rate at the TPU leg's "
+            "CPU baseline for bench.py: vs_baseline rate at the GPU run's "
             f"iteration budget ({ITERS}), f32 best_cost at that budget "
             "(bf16 gate reference), and the converged target_cost "
             f"({TARGET_ITERS} iters) for time-to-target.  Re-measure with "

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Venice-scale ingestion proof (VERDICT r5 item 6): generate a synthetic
+"""Venice-scale ingestion proof: generate a synthetic
 BAL FILE at real-Venice scale (~1.7M points / ~30M observations, realistic
 power-law skew), push it through the native text loader → bulk problem
 ingestion → Schur layout → parallelize → ONE sharded implicit-Schur LM
@@ -16,6 +16,7 @@ import json
 import os
 import resource
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -31,7 +32,11 @@ import jax.numpy as jnp  # noqa: E402
 
 NPTS = int(sys.argv[1]) if len(sys.argv) > 1 else 1_700_000
 NCAM = int(sys.argv[2]) if len(sys.argv) > 2 else 1778
-OUT = sys.argv[3] if len(sys.argv) > 3 else "/tmp/venice_scale"
+OUT = (
+    sys.argv[3]
+    if len(sys.argv) > 3
+    else os.path.join(tempfile.gettempdir(), "venice_scale")
+)
 
 _t0 = time.perf_counter()
 _phases = []
@@ -170,15 +175,14 @@ def main():
 
     # 7. ONE sharded implicit LM iteration (few CG iters — correctness).
     #
-    # KNOWN WALL (round 5, bench_logs/r5_venice*.log): on the VIRTUAL
-    # 8-device CPU mesh all per-device CG transients share one host
-    # arena — the full 54M-obs solve asks for a 267 GB buffer
-    # (~11 KB/obs peak, measured 76.8 GB at 6.8M obs where the solve
-    # COMPLETES in 1674 s); on 8 real TPU devices the same per-device
-    # footprint is ~1/8 and fits 16 GB HBM.  Above the limit the
-    # iteration runs on an obs-prefix subproblem at the measured-feasible
-    # scale and the wall is recorded in the phase line — round 6's named
-    # target is the CG-solve transient footprint itself.
+    # KNOWN WALL: on the VIRTUAL 8-device CPU mesh all per-device CG
+    # transients share one host arena — the full 54M-obs solve asks for
+    # a 267 GB buffer (~11 KB/obs peak, measured 76.8 GB at 6.8M obs on
+    # the CPU, where the solve completes); on real devices each holds
+    # ~1/n of it.  Above the limit the iteration runs on an obs-prefix
+    # subproblem at the measured-feasible scale and the wall is recorded
+    # in the phase line — the CG-solve transient footprint itself is the
+    # open item (ROADMAP §2.2).
     solve_obs_limit = int(os.environ.get("VENICE_SOLVE_OBS", 6_000_000))
     iter_problem, iter_nobs = problem, nobs
     if nobs > solve_obs_limit:

@@ -165,7 +165,7 @@ def test_adaptive_cm_batch_matches_per_cost():
 
 
 def test_adaptive_bal_schur_fast_path():
-    """Adaptive BA on the Schur fast path (VERDICT r3 item 5): a
+    """Adaptive BA on the Schur fast path: a
     (kernel, camera, point) cm batch with ONE shared ContaminatedGaussian
     rides the dual-sorted assembly — kernel blocks land via single
     reductions (kk/g_k sums, per-camera one-hot cross, per-landmark run

@@ -292,46 +292,14 @@ def test_realistic_bal_bucketed_direct():
     )
 
 
-def test_realistic_bal_fused_all_kernel(monkeypatch):
-    """The whole-system fused kernel must ENGAGE on skewed degree
-    distributions (w_pm set; one kernel pass per bucket) and match the
-    one-hot path — the regression for the round-3 gap where real-data
-    shapes silently fell back 3x slower."""
-    import jax
-    from nllstpu.core.optimize import compile_problem
-
-    d = bal.make_realistic_bal(ncameras=10, npoints=128, seed=5, noise=1e-3)
-    rng = np.random.default_rng(1)
-    d["points"] = d["points"] + rng.standard_normal(d["points"].shape) * 1e-3
-
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "onehot")
-    p1, _, _ = bal.make_bal_problem(d)
-    c_ref = compile_problem(p1, solver="schur", schur_family=bal.PT)
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "fused_all_interpret")
-    p2, _, _ = bal.make_bal_problem(d)
-    c_f = compile_problem(p2, solver="schur", schur_family=bal.PT)
-    assert c_f.schur_info.w_pm is not None  # fused path ENGAGED on skew
-    assert len(c_f.schur_info.fast[0].buckets) > 1
-    v = p1.stacked_variables()
-    cost_ref, sys_ref = jax.jit(c_ref.assemble)(v)
-    cost_f, sys_f = jax.jit(c_f.assemble)(v)
-    np.testing.assert_allclose(float(cost_f), float(cost_ref), rtol=1e-13)
-    for name, a, b in zip("a_rr b_r h_ll g_l".split(), sys_f[:4], sys_ref[:4]):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-9, atol=1e-11, err_msg=name
-        )
-    n_r, nrp, dr_s, pm_of_std = c_f.schur_info.w_pm
-    w_std = np.asarray(sys_f[4]).transpose(0, 2, 1)[:, :, pm_of_std]
-    np.testing.assert_allclose(
-        w_std, np.asarray(sys_ref[4]), rtol=1e-9, atol=1e-11
-    )
-
-
-def test_fused_all_fixed_landmark_extras(monkeypatch):
+def test_fused_all_fixed_landmark_extras():
     """Costs whose landmark is FIXED land in the extras region outside
     every obs-major run; their camera a_rr/b_r contributions must not be
-    dropped by the fused kernel path (which only sees the runs)."""
+    dropped by the direct obs-major assembly (which reduces the runs): the
+    assembled system must match the per-cost generic formulation, compared
+    through the damped step applied back to the variables."""
     import jax
+    import jax.numpy as jnp
     from nllstpu.core.optimize import compile_problem
 
     d = bal.make_synthetic_bal(5, 40, obs_per_point=4, noise=1e-3)
@@ -340,23 +308,34 @@ def test_fused_all_fixed_landmark_extras(monkeypatch):
         repr(bal.PT): np.arange(40) % 3 != 0,  # every third point fixed
     }
 
-    def build(impl):
-        monkeypatch.setenv("NLLSTPU_W_IMPL", impl)
-        p, cams, pts = bal.make_bal_problem(d)
+    def build(batched):
+        p, cams, pts = bal.make_bal_problem(d, batched=batched)
         perturb_ba(p, pts, 0.01, seed=7)
         return p, compile_problem(
             p, unfixed=unfixed, solver="schur", schur_family=bal.PT
         )
 
-    p1, c_ref = build("onehot")
-    p2, c_f = build("fused_all_interpret")
-    assert c_f.schur_info.w_pm is not None
-    v = p1.stacked_variables()
-    _, sys_ref = jax.jit(c_ref.assemble)(v)
-    _, sys_f = jax.jit(c_f.assemble)(v)
-    for name, a, b in zip("a_rr b_r h_ll g_l".split(), sys_f[:4], sys_ref[:4]):
+    p1, c_ref = build(False)
+    p2, c_f = build("cm")
+    f = c_f.schur_info.fast[0]
+    assert f is not None and f.obs_k is not None  # obs-major runs...
+    info = c_f.schur_info
+    assert int(np.asarray(c_f.batches[0].mask)[info.num_elim * f.obs_k:].sum())
+    v1, v2 = p1.stacked_variables(), p2.stacked_variables()
+    c1, sys_ref = jax.jit(c_ref.assemble)(v1)
+    c2, sys_f = jax.jit(c_f.assemble)(v2)
+    np.testing.assert_allclose(float(c2), float(c1), rtol=1e-12)
+    # a_rr/b_r are camera-indexed and cameras keep their order.
+    for name, a, b in zip(("a_rr", "b_r"), sys_f[:2], sys_ref[:2]):
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b), rtol=1e-9, atol=1e-11, err_msg=name
+        )
+    lam = jnp.asarray(1e-3, p1.dtype)
+    nv1 = c_ref.apply(v1, -c_ref.ctx().linops.solve(sys_ref, lam))
+    nv2 = c_f.apply(v2, -c_f.ctx().linops.solve(sys_f, lam))
+    for k in nv1:
+        np.testing.assert_allclose(
+            np.asarray(nv2[k]), np.asarray(nv1[k]), rtol=1e-8, atol=1e-11
         )
 
 
@@ -383,7 +362,7 @@ def test_auto_schur_family_detection():
     """Plain ``optimize(p)`` on a BA-shaped problem must land on the Schur
     backend without the user naming the eliminated family: the bipartite
     small-dof dominant family (points) is auto-detected when the
-    dense/sparse heuristic says "sparse" (VERDICT r3 item 8)."""
+    dense/sparse heuristic says "sparse"."""
     from nllstpu.core.optimize import compile_problem
 
     d = bal.make_synthetic_bal(8, 96, obs_per_point=5)
@@ -395,36 +374,3 @@ def test_auto_schur_family_detection():
     start = nt.cost(p)
     result = nt.optimize(p)  # default Options: solver="auto"
     assert result.best_cost < start * 1e-10
-
-
-def test_bal_cm_fused_all_kernel(monkeypatch):
-    """Real-data composition: BAL cm batch (synthesized Jacobian, dr_s=9
-    Snavely cameras) through the whole-system fused kernel
-    (NLLSTPU_W_IMPL=fused_all_interpret) matches the one-hot path."""
-    import jax
-    from nllstpu.core.optimize import compile_problem
-
-    data = bal.make_synthetic_bal(5, 40, obs_per_point=4, noise=1e-3)
-
-    def build():
-        p, cams, pts = bal.make_bal_problem(data)
-        perturb_ba(p, pts, 0.01, seed=7)
-        return p, compile_problem(p, solver="schur", schur_family=bal.PT)
-
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "onehot")
-    p1, c_ref = build()
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "fused_all_interpret")
-    p2, c_f = build()
-    assert c_f.schur_info.w_pm is not None
-    cost_ref, sys_ref = jax.jit(c_ref.assemble)(p1.stacked_variables())
-    cost_f, sys_f = jax.jit(c_f.assemble)(p2.stacked_variables())
-    np.testing.assert_allclose(float(cost_f), float(cost_ref), rtol=1e-13)
-    for name, a, b in zip("a_rr b_r h_ll g_l".split(), sys_f[:4], sys_ref[:4]):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-12, err_msg=name
-        )
-    n_r, nrp, dr_s, pm_of_std = c_f.schur_info.w_pm
-    w_std = np.asarray(sys_f[4]).transpose(0, 2, 1)[:, :, pm_of_std]
-    np.testing.assert_allclose(
-        w_std, np.asarray(sys_ref[4]), rtol=1e-10, atol=1e-12
-    )

@@ -135,7 +135,7 @@ def test_subproblem_preserves_jacobian_and_batched():
 
 
 def test_subproblem_scales():
-    """VERDICT #7 'Done' criterion: subproblem of a 1M-obs problem in < 1s
+    """Subproblem of a 1M-obs problem in < 1s
     (vectorized mask selection, no per-cost Python)."""
     import time
 
@@ -260,7 +260,7 @@ def test_subproblem_view_swaps_without_recompile():
 
 
 def test_subproblem_view_over_schur():
-    """SubproblemView over the direct Schur backend (VERDICT r3 item 9):
+    """SubproblemView over the direct Schur backend:
     compile once, swap cost subsets as runtime masks with zero retraces,
     matching the rebuild-per-subset (Problem.subproblem) optimum — the
     dual-path fast assembly gates every contribution through the traced

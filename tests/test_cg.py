@@ -103,7 +103,7 @@ def test_auto_solver_selection():
 def test_pose_graph_f32_converges():
     """f32 pose graphs must reach a deep cost floor: the arccos-based
     so3_log had an infinite derivative at the (clipped) identity, which
-    NaN'd jacfwd under TPU bf16 matmul rounding and floored the f32 cost at
+    NaN'd jacfwd under reduced-precision matmul rounding and floored the f32 cost at
     ~1e-2 even on CPU; the atan2 form + full-precision residual matmuls fix
     both (see core/manifolds.so3_log)."""
     import jax.numpy as jnp
@@ -131,7 +131,7 @@ def test_so3_log_differentiable_at_identity():
 def test_linear_tol_option():
     """``Options(linear_tol=...)`` (the Ceres eta analogue) loosens the
     inner CG tolerance; LM still converges to the reference target with
-    inexact steps (4x pose-graph speedup on TPU at 2048 poses)."""
+    inexact steps."""
     p, poses, truth = make_pose_graph(n_poses=32, n_loops=6, perturb=0.05)
     result = nt.optimize(
         p, nt.Options(solver="cg", linear_tol=1e-2, max_iters=40)

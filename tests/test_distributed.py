@@ -3,7 +3,7 @@
 each → a 4-device global mesh.
 
 This exercises the actual multihost code path (nllstpu.parallel.distributed
-+ mesh-sharded assembly + a fully-jitted sharded LM loop) that a TPU pod
++ mesh-sharded assembly + a fully-jitted sharded LM loop) that a multi-host job
 uses — the reference has no distributed machinery at all (SURVEY.md §5), and
 the single-process virtual-mesh tests cannot catch cross-process issues
 (global device_put, process-spanning psum, coordinator handshake)."""
@@ -64,8 +64,7 @@ def test_two_process_distributed_lm():
         # The fully-jitted cross-process LM loop descends.
         assert o["best"] < 0.01 * o["start"], (o["start"], o["best"])
         # Landmark-sharded optimize_sharded (direct + implicit) across the
-        # 2-process mesh reproduces the single-process optimum (VERDICT r3
-        # item 6: this path's axis_index slicing and global device_puts
+        # 2-process mesh reproduces the single-process optimum (this path's axis_index slicing and global device_puts
         # had never crossed a process boundary).
         np.testing.assert_allclose(
             o["lmshard_direct_start"], o["ref_cost"], rtol=1e-12

@@ -3,7 +3,7 @@ variable whose dimension is chosen at runtime (not a compile-time constant),
 a scalar linear residual plus a full-vector regularizer, Newton optimize,
 and the optimum must be collinear with the data vector.
 
-In the TPU build "dynamic" sizes are sizes fixed at problem-build (trace)
+Here "dynamic" sizes are sizes fixed at problem-build (trace)
 time rather than in the type system; XLA still sees static shapes.
 """
 

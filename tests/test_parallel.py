@@ -282,72 +282,6 @@ def test_landmark_sharded_obs_major_routing():
     np.testing.assert_allclose(a1, a2, atol=1e-12)
 
 
-def test_landmark_sharded_fused_all_kernel(monkeypatch):
-    """Per-device kernel-placed W (pm layout) in the landmark-sharded
-    direct path: NLLSTPU_W_IMPL=fused_all_interpret must reproduce the
-    standard sharded assembly (W compared through the pm un-permutation)
-    and the full sharded optimize end to end.  41 landmarks / 8 devices
-    exercises the in-place run padding and a zero-landmark shard.  The
-    kernel path requires a components-major batch (the pm layout derives
-    from the dual-sorted cm fast path)."""
-    p, cams, lmks = make_pinhole_ba(
-        ncameras=6, nlandmarks=41, prop_visible=0.6, dtype=jnp.float64,
-        batched="cm",
-    )
-    perturb_ba(p, lmks, 0.01, seed=3)
-    variables = p.stacked_variables()
-
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "onehot")
-    c_ref = compile_problem(p, solver="schur", schur_family=LMK)
-    par_ref = parallelize_schur(c_ref, make_mesh(8))
-    assert par_ref.w_pm is None
-    c1, (a1, b1, h1, g1, w1) = par_ref.assemble(variables)
-
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "fused_all_interpret")
-    c_pm = compile_problem(p, solver="schur", schur_family=LMK)
-    assert c_pm.schur_info.w_pm is not None
-    par_pm = parallelize_schur(c_pm, make_mesh(8))
-    assert par_pm.w_pm is not None
-    c2, (a2, b2, h2, g2, w2) = par_pm.assemble(variables)
-
-    np.testing.assert_allclose(c1, c2, rtol=1e-12)
-    np.testing.assert_allclose(a1, a2, atol=1e-12)
-    np.testing.assert_allclose(b1, b2, atol=1e-13)
-    np.testing.assert_allclose(np.asarray(h1), np.asarray(h2), atol=1e-13)
-    np.testing.assert_allclose(np.asarray(g1), np.asarray(g2), atol=1e-13)
-    n_r, nrp, dr_s, pm_of_std = par_pm.w_pm
-    w2_std = np.asarray(w2).transpose(0, 2, 1)[:, :, pm_of_std]
-    np.testing.assert_allclose(np.asarray(w1), w2_std, atol=1e-13)
-
-    # Damped sharded solve through the pm ops matches the standard ops.
-    from jax.sharding import PartitionSpec as P
-
-    mesh = make_mesh(8)
-
-    def solve(par, sys, w_spec):
-        spec = (P(), P(), P(None, None, "data"), P(None, "data"), w_spec)
-        return np.asarray(
-            jax.shard_map(
-                lambda s: par.ops().solve(s, jnp.float64(0.1)),
-                mesh=mesh, in_specs=(spec,), out_specs=P(),
-            )(sys)
-        )
-
-    x1 = solve(par_ref, (a1, b1, h1, g1, w1), P(None, "data"))
-    x2 = solve(par_pm, (a2, b2, h2, g2, w2), P(None, None, "data"))
-    np.testing.assert_allclose(x2, x1, atol=1e-11)
-
-    # Full sharded optimize end to end.
-    opts = nt.Options(schur_family=LMK, max_iters=10)
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "onehot")
-    r1 = optimize_sharded(p, make_mesh(8), opts)
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "fused_all_interpret")
-    r2 = optimize_sharded(p, make_mesh(8), opts)
-    np.testing.assert_allclose(
-        float(r2.best_cost), float(r1.best_cost), rtol=1e-9, atol=1e-25
-    )
-
-
 def _realistic_problem(dtype=jnp.float64):
     """Skewed-degree (bucketed-layout) BAL problem small enough for the
     8-device CPU mesh tests."""
@@ -362,22 +296,19 @@ def _realistic_problem(dtype=jnp.float64):
     return p
 
 
-def test_landmark_sharded_bucketed_layout(monkeypatch):
-    """Bucketed (skewed-degree) layouts survive landmark sharding
-    (VERDICT r5 item 3): strided ownership (_bucket_shard_plan) gives
-    every shard the same local bucket plan, the per-shard fused/bucket
-    fast paths re-engage (fast_meta carries local buckets; w_pm stays
-    engaged under fused_all), and assembly/solve/optimize all match the
+def test_landmark_sharded_bucketed_layout():
+    """Bucketed (skewed-degree) layouts survive landmark sharding: strided
+    ownership (_bucket_shard_plan) gives every shard the same local bucket
+    plan, the per-shard bucketed fast paths re-engage (fast_meta carries
+    local buckets), and assembly/solve/optimize all match the
     single-device results."""
     from nllstpu.models import bal
 
-    monkeypatch.setenv("NLLSTPU_W_IMPL", "fused_all_interpret")
     p = _realistic_problem()
     compiled = compile_problem(p, solver="schur", schur_family=bal.PT)
     info = compiled.schur_info
     fast = info.fast[0]
     assert fast.buckets is not None  # the shape really bucketed
-    assert info.w_pm is not None
     variables = p.stacked_variables()
     c1, (a1, b1, h1, g1, w1) = jax.jit(compiled.assemble)(variables)
 
@@ -386,7 +317,6 @@ def test_landmark_sharded_bucketed_layout(monkeypatch):
     assert par.gid_table is not None  # strided ownership engaged
     assert par.fast_meta[0] is not None
     assert par.fast_meta[0].buckets is not None  # local plan engaged
-    assert par.w_pm is not None
     c2, (a2, b2, h2, g2, w2) = par.assemble(variables)
     np.testing.assert_allclose(c1, c2, rtol=1e-12)
     np.testing.assert_allclose(a1, a2, atol=1e-11)
@@ -401,19 +331,17 @@ def test_landmark_sharded_bucketed_layout(monkeypatch):
     np.testing.assert_allclose(
         np.asarray(g2)[:, pos][:, :L], np.asarray(g1), atol=1e-12
     )
-    # W through the pm un-permutation, gid-reordered on the lane axis.
-    n_r, nrp, dr_s, pm_of_std = par.w_pm
-    w2_np = np.asarray(w2)[:, :, pos][:, :, :L]
-    w2_std = w2_np.transpose(0, 2, 1)[:, :, pm_of_std]
-    w1_std = np.asarray(w1).transpose(0, 2, 1)[:, :, pm_of_std]
-    np.testing.assert_allclose(w1_std, w2_std, atol=1e-12)
+    # W [dl, L, Dr], gid-reordered on the landmark axis.
+    np.testing.assert_allclose(
+        np.asarray(w2)[:, pos][:, :L], np.asarray(w1), atol=1e-12
+    )
 
     # Damped sharded solve matches the single-device solve in gid order.
     from jax.sharding import PartitionSpec as P
 
     x_ref = np.asarray(info.ops().solve((a1, b1, h1, g1, w1), jnp.float64(0.1)))
     spec = (P(), P(), P(None, None, "data"), P(None, "data"),
-            P(None, None, "data"))
+            P(None, "data"))
     x_sh = np.asarray(
         jax.shard_map(
             lambda s: par.ops().solve(s, jnp.float64(0.1)),

@@ -2,7 +2,7 @@
 with the dense normal equations on gradient, quadratic form, damped solves
 and final optima (the reference only asserts Schur-reorder cost invariance,
 test/optimizeba.jl:55-58; the marginalized solve itself is this framework's
-TPU-native replacement for sparse LDLᵀ)."""
+replacement for sparse LDLᵀ)."""
 
 import jax
 import jax.numpy as jnp
@@ -181,8 +181,7 @@ def test_implicit_schur_full_optimize():
 def test_implicit_schur_fixed_trip_cg():
     """The fixed-trip-count (fori_loop) CG with frozen-on-convergence
     updates must reproduce the dynamic while_loop solve and still drive a
-    full optimization to the reference target (the nested-while TPU-fault
-    mitigation, docs/ROUND1.md)."""
+    full optimization to the reference target."""
     import dataclasses
 
     p, cams, lmks = make_affine_ba(5, 12, 0.7)
@@ -311,8 +310,7 @@ def test_auto_implicit_fallback_past_w_budget(monkeypatch):
 
 def test_implicit_schur_stepped_driver():
     """The stepped driver (Python outer loop + jitted assemble/solve) on the
-    implicit backend — the documented workaround for the TPU-worker fault in
-    giant nested-while implicit programs (docs/ROUND1.md)."""
+    implicit backend: the outer loop on the host, jitted assemble and solve."""
     p, cams, lmks = make_affine_ba(6, 20, 0.5)
     perturb_ba(p, lmks, 0.01, seed=3)
     result = nt.optimize(
@@ -326,8 +324,7 @@ def test_implicit_schur_stepped_driver():
 
 def test_cg_fixed_iters_option():
     """``Options(cg_fixed_iters=N)`` runs the implicit reduced PCG as a
-    fixed-trip fori_loop (the giant-program full-jit recipe, docs/ROUND1.md)
-    and still reaches the reference cost target."""
+    fixed-trip fori_loop and still reaches the reference cost target."""
     p, cams, lmks = make_affine_ba(6, 20, 0.5)
     perturb_ba(p, lmks, 0.01, seed=3)
     result = nt.optimize(
@@ -342,8 +339,7 @@ def test_cg_fixed_iters_option():
 
 def test_giant_implicit_auto_fixed_cg(monkeypatch):
     """Fully-jitted implicit programs above the giant-observation limit get
-    the fixed-trip CG automatically (the TPU-worker-fault guard,
-    docs/ROUND1.md); the option still converges to the reference target."""
+    the fixed-trip CG automatically; the option still converges to the reference target."""
     from nllstpu.core import optimize as opt
 
     monkeypatch.setattr(opt, "GIANT_IMPLICIT_OBS_LIMIT", 1)
@@ -578,69 +574,6 @@ def test_w_dtype_bf16_knob(monkeypatch):
     assert sys_64[4].dtype == jnp.float64
 
 
-def test_giant_fulljit_stepped_fallback_gate(monkeypatch):
-    """Implicit problems past GIANT_FULLJIT_OBS_LIMIT must route to the
-    host-stepped driver on TPU (the current worker faults on fully-jitted
-    implicit programs at that scale regardless of control-flow nesting —
-    bisected on-chip in round 2), with NLLSTPU_GIANT_FULLJIT=1 forcing the
-    jit driver back on.  The gate itself is unit-tested here; the CPU
-    backend never triggers it."""
-    from nllstpu.core import optimize as opt_mod
-
-    p, cams, lmks = make_affine_ba(5, 12, 0.7)
-    c_cg = opt_mod.compile_problem(p, solver="schur_cg", schur_family=LMK)
-    c_direct = opt_mod.compile_problem(p, solver="schur", schur_family=LMK)
-    monkeypatch.setattr(opt_mod, "GIANT_FULLJIT_OBS_LIMIT", 1)
-    monkeypatch.delenv("NLLSTPU_GIANT_FULLJIT", raising=False)
-    # CPU backend: never unsafe.
-    assert not opt_mod._giant_fulljit_unsafe(c_cg)
-    # TPU backend + above the limit: unsafe -> stepped.
-    monkeypatch.setattr(opt_mod.jax, "default_backend", lambda: "tpu")
-    assert opt_mod._giant_fulljit_unsafe(c_cg)
-    # Non-implicit compiles keep the jit driver.
-    assert not opt_mod._giant_fulljit_unsafe(c_direct)
-    # The DENSE_W_BYTE_LIMIT auto-fallback compiles solver="schur" problems
-    # implicit past the W memory budget — those MUST hit the gate too (the
-    # round-2 hole: gating on the requested solver string missed them).
-    monkeypatch.setattr(opt_mod, "DENSE_W_BYTE_LIMIT", 0)
-    c_auto_implicit = opt_mod.compile_problem(
-        p, solver="schur", schur_family=LMK
-    )
-    assert c_auto_implicit.schur_info.implicit
-    assert opt_mod._giant_fulljit_unsafe(c_auto_implicit)
-    # Below the limit: jit driver.
-    monkeypatch.setattr(opt_mod, "GIANT_FULLJIT_OBS_LIMIT", 10_000_000)
-    assert not opt_mod._giant_fulljit_unsafe(c_cg)
-    # Env override forces fulljit at any scale.
-    monkeypatch.setattr(opt_mod, "GIANT_FULLJIT_OBS_LIMIT", 1)
-    monkeypatch.setenv("NLLSTPU_GIANT_FULLJIT", "1")
-    assert not opt_mod._giant_fulljit_unsafe(c_cg)
-
-
-def test_giant_gate_routes_optimize_to_stepped(monkeypatch):
-    """End-to-end: when the gate fires, optimize() runs the stepped driver
-    (observable via real per-phase times — the jit driver reports NaN) and
-    never traces the fully-jitted program."""
-    from nllstpu.core import optimize as opt_mod
-
-    p, cams, lmks = make_affine_ba(4, 9, 0.8)
-    monkeypatch.setattr(opt_mod, "GIANT_FULLJIT_OBS_LIMIT", 1)
-    monkeypatch.setattr(opt_mod.jax, "default_backend", lambda: "tpu")
-    monkeypatch.delenv("NLLSTPU_GIANT_FULLJIT", raising=False)
-
-    def _boom(*a, **k):  # the faulting path must not even be traced
-        raise AssertionError("jit runner built despite the giant gate")
-
-    monkeypatch.setattr(opt_mod, "_JitRunner", _boom)
-    opts = nt.Options(
-        solver="schur_cg", schur_family=LMK,
-        iterator=nt.LEVENBERG_MARQUARDT, max_iters=3,
-    )
-    r = nt.optimize(p, opts)
-    assert np.isfinite(r.time_gradient)  # stepped driver measures phases
-    assert r.best_cost <= r.start_cost
-
-
 def test_flat_lm_fused_trial_matches():
     """Options(fused_trial=True): LM trials evaluate a full assemble whose
     cost output drives the accept decision; the trajectory must match the
@@ -702,3 +635,64 @@ def test_flat_lm_fused_trial_pinhole_converges():
     np.testing.assert_allclose(
         float(r_f.best_cost), float(r_ref.best_cost), rtol=1e-8
     )
+
+
+def _dot_precisions(jaxpr):
+    """Precision params of every dot_general in ``jaxpr`` and its
+    sub-jaxprs."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            out.extend(_dot_precisions(sub))
+    return out
+
+
+@pytest.mark.parametrize("method", ["solve", "quad", "solve0_quad_grad"])
+def test_f32_schur_ops_pin_every_precision(method):
+    """No contraction of the f32 direct Schur ops is left at the backend's
+    default precision, which on the GPU may be TF32 (~1e-3 relative)."""
+    from nllstpu.models.ba import make_pinhole_ba
+
+    p, _, lmks = make_pinhole_ba(ncameras=4, nlandmarks=12, dtype=jnp.float32,
+                                 batched="cm")
+    perturb_ba(p, lmks, 0.03, seed=2)
+    c = compile_problem(p, solver="schur", schur_family=LMK)
+    ops = c.schur_info.ops()
+    _, sys_ = jax.jit(c.assemble)(p.stacked_variables())
+    args = {
+        "solve": (sys_, jnp.float32(1e-3)),
+        "quad": (sys_, jnp.ones(ops.dim, jnp.float32)),
+        "solve0_quad_grad": (sys_,),
+    }[method]
+    precisions = _dot_precisions(
+        jax.make_jaxpr(getattr(ops, method))(*args).jaxpr
+    )
+    assert precisions and None not in precisions
+
+
+def test_f32_schur_step_matches_f64_dense():
+    """The f32 direct Schur step, at its pinned precisions, against the f64
+    dense step of the same long-tailed BAL problem (the reference)."""
+    from chip_smoke import step_by_variable
+    from nllstpu.models import bal
+
+    d = bal.make_realistic_bal(ncameras=12, npoints=300, seed=2, noise=1e-3)
+    steps, lam = {}, None
+    for dtype, solver in ((jnp.float64, "dense"), (jnp.float32, "schur")):
+        p, _, pts = bal.make_bal_problem(d, dtype=dtype)
+        perturb_ba(p, pts, 0.02, seed=3)
+        c = compile_problem(p, solver=solver, schur_family=bal.PT)
+        ops = c.schur_info.ops() if solver == "schur" else DenseOps(
+            c.layout.dof_total)
+        _, sys_ = jax.jit(c.assemble)(p.stacked_variables())
+        if lam is None:
+            lam = 1e-4 * float(ops.diag_max(sys_))
+        steps[solver] = step_by_variable(c, ops.solve(sys_, dtype(lam)))
+    xs, xd = steps["schur"], steps["dense"]
+    cos = xs @ xd / (np.linalg.norm(xs) * np.linalg.norm(xd))
+    # Seen on the CPU: 1 - cos ~4e-11, relative difference ~9e-6 (f32
+    # round-off of the assembly and solve).
+    assert cos > 1 - 1e-8
+    assert np.linalg.norm(xs - xd) / np.linalg.norm(xd) < 1e-4
